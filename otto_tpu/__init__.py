@@ -1,6 +1,6 @@
-"""otto_tpu — a TPU-native session-recommender engine.
+"""otto_tpu — a session-recommender engine on JAX/XLA accelerators.
 
-A from-scratch JAX/XLA/Pallas re-design of the OTTO multi-objective recommender
+A from-scratch JAX/XLA re-design of the OTTO multi-objective recommender
 pipeline (reference: nicolaivicol/otto-recommender). The reference is a 15-step
 CPU batch pipeline (polars/gensim/faiss/LightGBM); here every hot loop is a
 sharded device computation:
@@ -9,13 +9,13 @@ sharded device computation:
                              (reference: model/count_co_events.py)
 * word2vec item embeddings-> JAX skip-gram negative sampling, row-sharded table
                              (reference: model/w2vec_aids.py gensim hogwild)
-* kNN retrieval           -> exact tiled MIPS/L2 top-k on the MXU
+* kNN retrieval           -> exact tiled MIPS/L2 top-k (matmul + running top_k)
                              (reference: faiss IndexIVFFlat, model/w2vec_aids.py:98-110)
 * KMeans session clusters -> Lloyd's iterations as matmul+argmin+segment-sum
                              (reference: dask_ml / sklearn, model/kmeans_sessions.py)
 * candidate retrieval     -> fused multi-source gather + dense segmented reductions
                              (reference: model/retrieve.py)
-* ranking                 -> LambdaRank scoring tower trained with pjit
+* ranking                 -> histogram-GBDT lambdarank on device
                              (reference: LightGBM lambdarank, model/train_lgbm_rankers.py)
 
 Layering (mirrors SURVEY.md §1):

@@ -13,6 +13,20 @@ from typing import Optional
 import numpy as np
 
 
+def _pyarrow():
+    """(pyarrow, pyarrow.parquet), imported on first parquet use: pyarrow
+    is the optional `parquet` extra, and nothing else in the package
+    needs it."""
+    try:
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+    except ImportError as e:
+        raise ImportError(
+            "parquet IO needs pyarrow: pip install 'otto-tpu[parquet]'"
+        ) from e
+    return pa, pq
+
+
 @dataclasses.dataclass
 class Events:
     """Flat event table, the L1 interchange format."""
@@ -58,9 +72,7 @@ class Events:
 
     # -- parquet interop (host IO boundary) --------------------------------
     def to_parquet(self, path: str) -> None:
-        import pyarrow as pa
-        import pyarrow.parquet as pq
-
+        pa, pq = _pyarrow()
         table = pa.table(
             {
                 "session": pa.array(self.session, pa.int32()),
@@ -73,8 +85,7 @@ class Events:
 
     @staticmethod
     def from_parquet(path: str) -> "Events":
-        import pyarrow.parquet as pq
-
+        _, pq = _pyarrow()
         t = pq.read_table(path)
         return Events(
             t["session"].to_numpy(),
@@ -106,9 +117,7 @@ class Labels:
         return Labels(self.session[m], self.type[m], self.aid[m])
 
     def to_parquet(self, path: str) -> None:
-        import pyarrow as pa
-        import pyarrow.parquet as pq
-
+        pa, pq = _pyarrow()
         table = pa.table(
             {
                 "session": pa.array(self.session, pa.int32()),
@@ -120,8 +129,7 @@ class Labels:
 
     @staticmethod
     def from_parquet(path: str) -> "Labels":
-        import pyarrow.parquet as pq
-
+        _, pq = _pyarrow()
         t = pq.read_table(path)
         return Labels(
             t["session"].to_numpy(), t["type"].to_numpy(), t["aid"].to_numpy()

@@ -3,8 +3,9 @@
 Replaces LightGBM's lambdarank GBDT (reference: config.py:207-227,
 model/train_lgbm_rankers.py:110-129) with an MLP scoring tower trained with
 the LambdaRank pairwise loss over per-session candidate groups — the one
-intentional model-class change (BASELINE north star; GBDT tree growth is not
-TPU-idiomatic, a batched pairwise tower is pure MXU work).
+intentional model-class change (BASELINE north star: a batched pairwise
+tower is pure matmul work). The pipeline's default ranker is the GBDT
+(models/gbdt.py); this tower is the alternative backend (ROADMAP D6).
 
 Semantics kept from the reference:
   * listwise groups = sessions, one group per session
@@ -45,7 +46,7 @@ class RankerParams(NamedTuple):
     # x - max_g over valid candidates; validity = any src flag set). An
     # independent per-candidate MLP cannot express "best in its session" —
     # LightGBM's session-wise splits can, and this closes most of that gap
-    # (EXP_RANKER.json).
+    # on the 20k-session synthetic sweep.
     src_idx: "jnp.ndarray | None" = None
 
 
@@ -301,7 +302,7 @@ def train_ranker(
 ) -> Ranker:
     """Group rows by session, pad groups to cfg.max_group, train.
 
-    Training loop (VERDICT r2 item 7): linear-warmup + cosine-decay lr,
+    Training loop: linear-warmup + cosine-decay lr,
     train-time dropout, per-epoch valid ndcg@k with best-epoch tracking and
     optional early stopping — the LightGBM-side equivalents the reference
     relies on (best-iter extraction reference: utils.py:77-93, eval logs

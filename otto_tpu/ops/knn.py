@@ -1,12 +1,17 @@
-"""Exact sharded top-k nearest neighbours on the MXU (C9).
+"""Exact sharded top-k nearest neighbours (C9).
 
 Replaces faiss IndexIVFFlat (nlist=100, nprobe=3 — a lossy ANN, reference:
 model/w2vec_aids.py:98-110) with exact brute-force search: the corpus streams
-through the MXU in tiles, a running top-k merges per tile via lax.top_k.
-On TPU the 600k x 1.8M x 100 score matrix is ~10 TFLOP of dense bf16 matmul —
-cheaper than the reference's hour-scale CPU IVF sweep, and exact recall beats
-IVF's (overlap stats in reference: model/w2vec_aids.py:237-241 show nprobe=3
+through a matrix product in tiles, and a running top-k merges per tile via
+lax.top_k. At OTTO scale (600k queries x 1.8M x 100) the score matrix is
+216 TFLOP of dense matmul, and exact recall beats IVF's
+(overlap stats in reference: model/w2vec_aids.py:237-241 show nprobe=3
 agrees with exact search on only ~97% of neighbours at best).
+
+Precision: the tile product runs at `lax.Precision.HIGHEST` (full f32). The
+l2 score -(|q|^2 + |c|^2 - 2 q.c) subtracts two nearly equal terms for near
+neighbours, so the ~3 decimal digits of TF32 (a GPU's default for f32
+matmuls) can reorder close neighbours and lose the self-neighbour.
 """
 from __future__ import annotations
 
@@ -32,6 +37,8 @@ def _topk_neighbors_impl(
                     (reference: model/w2vec_aids.py:104).
     metric 'dot' -> inner product (MIPS).
     metric 'cos' -> cosine similarity.
+
+    With V < k the trailing columns carry score -inf and index -1.
     """
     Q, D = queries.shape
     V = corpus.shape[0]
@@ -51,7 +58,8 @@ def _topk_neighbors_impl(
             c_tile = c_tile / jnp.maximum(
                 jnp.linalg.norm(c_tile, axis=-1, keepdims=True), 1e-9
             )
-        s = jnp.dot(q, c_tile.T, preferred_element_type=jnp.float32)  # [Q, T]
+        s = jnp.dot(q, c_tile.T, preferred_element_type=jnp.float32,
+                    precision=jax.lax.Precision.HIGHEST)  # [Q, T]
         if metric == "l2":
             c_sq = jnp.sum(c_tile * c_tile, axis=-1)[None, :]
             s = -(q_sq + c_sq - 2.0 * s)  # -squared L2
@@ -59,7 +67,7 @@ def _topk_neighbors_impl(
         # mask out padding rows of the corpus
         pad = idx >= V
         s = jnp.where(pad, -jnp.inf, s)
-        return s, jnp.broadcast_to(idx, s.shape)
+        return s, jnp.broadcast_to(jnp.where(pad, -1, idx), s.shape)
 
     def body(carry, inp):
         best_s, best_i = carry
@@ -87,7 +95,7 @@ topk_neighbors = partial(jax.jit, static_argnums=(2, 3, 4))(
 
 def make_sharded_topk(mesh_ctx, k: int, metric: str = "l2", tile: int = 8192):
     """Query-sharded exact top-k: queries row-sharded over the data axis,
-    corpus replicated (1.8M x 100 f32 = 720 MB/device — fits every chip).
+    corpus replicated (1.8M x 100 f32 = 720 MB/device).
     Each device searches its query rows independently; no collectives.
     This is the SPMD form of the reference's batched faiss query loop
     (reference: model/w2vec_aids.py:125-173)."""
@@ -102,11 +110,10 @@ def make_sharded_topk(mesh_ctx, k: int, metric: str = "l2", tile: int = 8192):
     return jax.jit(run, in_shardings=(sh, repl), out_shardings=(sh, sh))
 
 
-def _default_backend() -> str:
-    try:
-        return "pallas" if jax.devices()[0].platform != "cpu" else "xla"
-    except Exception:
-        return "xla"
+def corpus_tile(n_corpus: int, tile: int = 8192) -> int:
+    """Corpus tile width: `tile`, shrunk to the next power of two >= the
+    corpus (at least 128) so a small corpus is not padded to a full tile."""
+    return min(tile, max(128, 1 << int(np.ceil(np.log2(max(n_corpus, 1))))))
 
 
 def knn_search(
@@ -116,21 +123,17 @@ def knn_search(
     metric: str = "l2",
     query_block: int = 16384,
     tile: int = 8192,
-    backend: str = "auto",
     mesh_ctx=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Host driver: stream query blocks through the device kernel.
+    """Host driver: stream query blocks through `topk_neighbors`.
 
-    backend 'pallas' uses the fused VMEM-resident kernel
-    (otto_tpu.ops.pallas.mips, ~3.4x the XLA scan path on v5e); 'xla' the
-    lax.scan + top_k merge; 'auto' picks pallas on accelerators.
+    Blocks are padded to `query_block` rows whenever there is more than one
+    block (or a mesh), so every dispatch reuses one compiled program.
     With `mesh_ctx`, query blocks are row-sharded over the data axis and
     each device searches the replicated corpus independently.
     """
-    if backend == "auto":
-        backend = _default_backend()
     Q = queries.shape[0]
-    tile = min(tile, max(128, 1 << int(np.ceil(np.log2(max(corpus.shape[0], 1))))))
+    tile = corpus_tile(corpus.shape[0], tile)
     sharded_fn = None
     if mesh_ctx is not None and mesh_ctx.n_devices > 1:
         n_dev = mesh_ctx.mesh.shape[mesh_ctx.data_axis]
@@ -138,7 +141,7 @@ def knn_search(
         sharded_fn = make_sharded_topk(mesh_ctx, k, metric, tile)
     out_s = np.empty((Q, k), np.float32)
     out_i = np.empty((Q, k), np.int32)
-    corpus_d = jnp.asarray(corpus)
+    corpus_d = jnp.asarray(corpus, jnp.float32)
     for i in range(0, Q, query_block):
         qb = np.asarray(queries[i : i + query_block], np.float32)
         nb = len(qb)
@@ -146,10 +149,6 @@ def knn_search(
             qb = np.pad(qb, ((0, query_block - nb), (0, 0)))
         if sharded_fn is not None:
             s, ix = sharded_fn(jnp.asarray(qb), corpus_d)
-        elif backend == "pallas":
-            from otto_tpu.ops.pallas.mips import mips_topk_pallas
-
-            s, ix = mips_topk_pallas(jnp.asarray(qb), corpus_d, k, metric)
         else:
             s, ix = topk_neighbors(jnp.asarray(qb), corpus_d, k, metric, tile)
         out_s[i : i + nb] = np.asarray(s)[:nb]

@@ -11,8 +11,9 @@ rank over cluster, ...) becomes one of the primitives here:
   join on key        -> dense table gather (keys are small ints: aid/session)
 
 All shapes are static; invalid lanes carry the SENTINEL key and sort to the
-end. This is the TPU-idiomatic "DataFrame": XLA's bitonic sort saturates HBM
-bandwidth and the scatters/gathers stay on device.
+end, so every groupby is a fixed-shape device program built from sorts,
+shifts and scans. The design avoids scatters and flat gathers on the hot
+paths; whether that trade still pays on a GPU is open (ROADMAP D7).
 """
 from __future__ import annotations
 
@@ -29,10 +30,10 @@ NEG_SENTINEL = jnp.int32(-(2**31 - 1))
 def _shift_right(x: jnp.ndarray, fill) -> jnp.ndarray:
     """x[i-1] with x[0] := fill, along the last axis.
 
-    Implemented as roll + masked first lane: the natural
-    concatenate([fill, x[..., :-1]]) formulation triggers a catastrophic
-    XLA/Mosaic fusion pathology when composed after lax.sort on TPU
-    (measured: 215s compile / 90x slower run vs 2.6s / baseline for roll).
+    Implemented as roll + masked first lane rather than
+    concatenate([fill, x[..., :-1]]): the concatenation after lax.sort
+    compiled into a far slower program on the accelerator this was first
+    tuned for (ROADMAP D7).
     """
     sh = jnp.roll(x, 1, axis=-1)
     lane = jax.lax.broadcasted_iota(jnp.int32, x.shape, x.ndim - 1)
@@ -77,8 +78,8 @@ def sort_compress(
     (a,) = segmented_scan((vs,), ("sum",), first, axis=0)
 
     # compact segment ends to the front with a second payload-carrying
-    # sort — flat 1-D gathers measured ~50 ms at 2M rows on v5e (the same
-    # ~100x-off-roofline pathology as row gathers), the sort is ~4 ms
+    # sort instead of a flat 1-D gather (the scatter/gather-free design,
+    # ROADMAP D7)
     is_end = _shift_left(first, True) & (k1s != SENTINEL)
     ck1 = jnp.where(is_end, k1s, SENTINEL)
     ck2 = jnp.where(is_end, k2s, SENTINEL)
@@ -199,7 +200,7 @@ def ordinal_rank_asc(
 
 
 # ---------------------------------------------------------------------------
-# Dense top-N tables (the TPU replacement for "join on (aid, aid_next)")
+# Dense top-N tables (the device replacement for "join on (aid, aid_next)")
 # ---------------------------------------------------------------------------
 def build_topn_tables(
     key: jnp.ndarray,
@@ -280,8 +281,8 @@ def rowwise_segment_reduce(
 
 
 def _roll_right_by(x: jnp.ndarray, d: int, fill, axis: int) -> jnp.ndarray:
-    """Shift by d along `axis`, filling the first d lanes. Roll-based: sliced
-    concatenation shifts trigger an XLA/Mosaic pathology after sorts."""
+    """Shift by d along `axis`, filling the first d lanes (roll-based, as
+    _shift_right)."""
     sh = jnp.roll(x, d, axis=axis)
     lane = jax.lax.broadcasted_iota(jnp.int32, x.shape, axis % x.ndim)
     return jnp.where(lane < d, fill, sh)
@@ -334,51 +335,11 @@ def _reduce_identity(dtype, red: str):
     return jnp.array(SENTINEL if red == "min" else NEG_SENTINEL, dtype)
 
 
-def _pallas_segscan_mode() -> str:
-    """'on' | 'off' | 'interpret' — whether rowwise_groupby_scan's stacked
-    scans route through the single-pass Pallas segmented-scan kernel
-    (ops/pallas/segscan.py). Auto: OFF everywhere — a measured negative
-    result (see ARCHITECTURE.md "Pallas segmented scan"): on the real
-    v5e chip the kernel is break-even in isolation at retrieval shapes
-    (398.9 ms vs 376.5 ms XLA at [6,256,3968], scripts/
-    validate_segscan_tpu.py) and a 36% END-TO-END regression inside the
-    fused retrieval program (bench.py A/B: 8403.9 sessions/s off vs
-    5408.9 on) because routing through the kernel breaks XLA's fusion of
-    the surrounding elementwise work into the scan network. Opt back in
-    explicitly with OTTO_PALLAS_SEGSCAN=on only after a same-hardware
-    end-to-end measurement shows a win."""
-    import os
-
-    v = os.environ.get("OTTO_PALLAS_SEGSCAN", "auto")
-    if v in ("on", "off", "interpret"):
-        return v
-    return "off"
-
-
-def _pallas_gather_mode() -> str:
-    """'on' | 'off' | 'interpret' — whether transport gathers route through
-    the Pallas chunked-vreg gather kernel (ops/pallas/gather.py). Auto: on
-    for TPU backends (XLA's row gather measured ~100x off roofline there),
-    XLA take_along_axis elsewhere."""
-    import os
-
-    v = os.environ.get("OTTO_PALLAS_GATHER", "auto")
-    if v in ("on", "off", "interpret"):
-        return v
-    return "on" if jax.default_backend() == "tpu" else "off"
-
-
 def rowwise_transport_sort(key: jnp.ndarray, arrays):
     """Stable-sort `arrays` by `key` along the last axis: ONE (key, pos)
     sort, then every column moves through the permutation in dtype-stacked
-    gathers.
-
-    On TPU the gathers use the Pallas chunked-vreg kernel — XLA's
-    take_along_axis lowers row gathers ~100x off the bandwidth roofline
-    (honest v5e: 49 ms for [28, 512, 2560] i32 vs ~5 ms for the kernel),
-    while carrying the columns as sort payload operands is runtime-cheap
-    but a COMPILE bomb (superlinear in sort arity: 17 operands ~60s,
-    33 ~290s, 60+ did not finish in 28 min of remote compile).
+    take_along_axis gathers. Carrying the columns as sort payload operands
+    instead makes compile time superlinear in the sort's operand count.
 
     Returns (sorted_key, [sorted_arrays...]).
     """
@@ -387,7 +348,6 @@ def rowwise_transport_sort(key: jnp.ndarray, arrays):
     ks, perm = lax.sort((key, pos), dimension=-1, num_keys=1, is_stable=True)
     if not arrays:
         return ks, []
-    mode = _pallas_gather_mode()
     # stack by dtype: one gather per dtype group
     groups: dict = {}
     for i, a in enumerate(arrays):
@@ -395,12 +355,7 @@ def rowwise_transport_sort(key: jnp.ndarray, arrays):
     outs = [None] * len(arrays)
     for _, idxs in groups.items():
         st = jnp.stack([arrays[i] for i in idxs], axis=0)
-        if mode != "off" and C >= 256:
-            from otto_tpu.ops.pallas.gather import gather_rows
-
-            g = gather_rows(st, perm, interpret=mode == "interpret")
-        else:
-            g = jnp.take_along_axis(st, perm[None, :, :], axis=2)
+        g = jnp.take_along_axis(st, perm[None, :, :], axis=2)
         for j, i in enumerate(idxs):
             outs[i] = g[j]
     return ks, outs
@@ -442,17 +397,9 @@ def rowwise_groupby_scan(
             continue
         groups.setdefault((jnp.dtype(arr.dtype).name, red), []).append(n)
     out = dict(by_name)
-    segscan_mode = _pallas_segscan_mode()
     for (_, red), gnames in groups.items():
         st = jnp.stack([by_name[n] for n in gnames], axis=0)
-        if segscan_mode in ("on", "interpret"):
-            from otto_tpu.ops.pallas.segscan import segmented_scan_pallas
-
-            sc = segmented_scan_pallas(
-                st, first, red, interpret=segscan_mode == "interpret"
-            )
-        else:
-            (sc,) = segmented_scan((st,), (red,), first[None, :, :], axis=2)
+        (sc,) = segmented_scan((st,), (red,), first[None, :, :], axis=2)
         for j, n in enumerate(gnames):
             out[n] = sc[j]
 

@@ -7,7 +7,8 @@ the reference's chunked outer loop, model/count_co_events.py:83), then an
 ALL-TO-ALL exchanges compressed (key, aid_next, count) triples so that each
 device owns the disjoint key range {aid : aid % n_shards == shard_id} — the
 hierarchical merge (model/count_co_events.py:103-181) becomes a single
-collective + local sort-compress merge, riding ICI instead of disk.
+collective + local sort-compress merge, over the device interconnect
+instead of disk.
 
 Like the single-chip CoVisCounter, all 5 count types ride ONE type-tagged
 keyspace (k1 = type * AID_STRIDE + aid; the types are disjoint in
@@ -140,11 +141,9 @@ def gather_tagged_table(table: CountTable, names) -> Dict[str, tuple]:
     Returns {count_type_name: (aid, aid_next, count)} sorted by key."""
     import numpy as np
 
-    from otto_tpu.utils.transfer import fast_pull
-
-    a = fast_pull(table.aid)
-    b = fast_pull(table.aid_next)
-    c = fast_pull(table.count)
+    a = np.asarray(table.aid)
+    b = np.asarray(table.aid_next)
+    c = np.asarray(table.count)
     valid = (a != int(SENT)) & (c > 0)
     a, b, c = a[valid], b[valid], c[valid]
     tag = a // AID_STRIDE

@@ -4,7 +4,7 @@ This replaces the reference's Dask LocalCluster factory (reference:
 dask_utils.py:9-32) as the distribution substrate: instead of a task-graph
 scheduler shuffling partitions between worker threads, we lay out a
 `jax.sharding.Mesh` over all chips and express every distributed op as an
-SPMD program with XLA collectives riding ICI/DCN.
+SPMD program with XLA collectives (NCCL on GPUs).
 
 Axes:
   data  — batch/session sharding (pure data parallelism).

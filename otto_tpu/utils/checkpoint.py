@@ -59,7 +59,7 @@ def load_checkpoint(
     shapes differ from `like`, or the stored meta dict differs from
     `expect_meta`. Shapes come from the file, not the template, so without
     this check a checkpoint written under a different vocab/dim would load
-    "successfully" and corrupt training downstream (ADVICE r4)."""
+    "successfully" and corrupt training downstream."""
     if not os.path.exists(path):
         return None
     z = np.load(path)

@@ -3,7 +3,7 @@
 Reference point: LightGBM trains 3 lambdarank models (150 trees, depth 4)
 over 40M/11M/7.5M downsampled rows in 5-10 min total on the baseline CPU
 box (reference: model/train_lgbm_rankers.py:226, README.md:255-259) —
-about 0.8-1.6M rows*trees/s. Prints rows*trees/s for the TPU trainer.
+about 0.8-1.6M rows*trees/s. Prints rows*trees/s for the device trainer.
 
 Usage: python scripts/bench_gbdt.py [n_groups] [group_size]
 """
@@ -11,25 +11,19 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_comp_cache")
-
 import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():
     import jax
-
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.environ["JAX_COMPILATION_CACHE_DIR"])
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
     import jax.numpy as jnp
 
-    from otto_tpu.config import GBDTConfig
+    from otto_tpu.config import GBDTConfig, enable_persistent_compilation_cache
     from otto_tpu.models.gbdt import _train_program, _predict_binned_program
-    from otto_tpu.utils.timing import device_sync
+
+    enable_persistent_compilation_cache()
 
     NG = int(sys.argv[1]) if len(sys.argv) > 1 else 1 << 15
     G = int(sys.argv[2]) if len(sys.argv) > 2 else 96
@@ -43,14 +37,14 @@ def main():
 
     t0 = time.time()
     out = _train_program(bins, labels, mask, cfg)
-    device_sync(out)
+    jax.block_until_ready(out)
     cold = time.time() - t0
 
     times = []
     for _ in range(2):
         t0 = time.time()
         out = _train_program(bins, labels, mask, cfg)
-        device_sync(out)
+        jax.block_until_ready(out)
         times.append(time.time() - t0)
     train_s = min(times)
     rows = NG * G
@@ -60,11 +54,11 @@ def main():
     gfeat, thr, leaf, _ = out
     t0 = time.time()
     s = _predict_binned_program(bins, gfeat, thr, leaf, cfg.n_bins)
-    device_sync(s)
+    jax.block_until_ready(s)
     for _ in range(2):
         t0 = time.time()
         s = _predict_binned_program(bins, gfeat, thr, leaf, cfg.n_bins)
-        device_sync(s)
+        jax.block_until_ready(s)
     pred_s = time.time() - t0
 
     print(f"# rows={rows} trees={cfg.n_trees} cold={cold:.1f}s "

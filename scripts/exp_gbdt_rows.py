@@ -18,7 +18,6 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_comp_cache")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
@@ -29,10 +28,12 @@ def main():
     types = ["clicks", "carts", "orders"] if sys.argv[2] == "all" else [sys.argv[2]]
     variants = sys.argv[3:] or [""]
 
-    from otto_tpu.config import GBDTConfig
+    from otto_tpu.config import GBDTConfig, enable_persistent_compilation_cache
     from otto_tpu.engine.retrieval import FEATURE_NAMES
     from otto_tpu.models.gbdt import train_gbdt_ranker
     from otto_tpu.models.ranker import ndcg_at_k, _group_pad
+
+    enable_persistent_compilation_cache()
 
     for tname in types:
         z = np.load(os.path.join(work, f"downsampled-{tname}.npz"))

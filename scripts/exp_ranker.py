@@ -3,7 +3,8 @@
 Runs the pipeline once up to retrieval (C7-C14) on synthetic data, caches
 the retrieved candidate/feature/target tensors to disk, then trains and
 evaluates ranker variants against the retrieval ceiling. Iterating on
-ranker code only pays the (cheap) cache reload, not TPU retrieval.
+ranker code only pays the (cheap) cache reload, not device retrieval.
+Results go to WORK/exp_ranker.json.
 
 Usage:
   python scripts/exp_ranker.py                 # default 20k sessions
@@ -24,22 +25,18 @@ log = logging.getLogger("exp_ranker")
 
 N_SESSIONS = int(os.environ.get("OTTO_EXP_SESSIONS", 20_000))
 N_AIDS = int(os.environ.get("OTTO_EXP_AIDS", 20_000))
-WORK = os.environ.get("OTTO_EXP_DIR", f"/tmp/exp_ranker_{N_SESSIONS}")
+WORK = os.environ.get(
+    "OTTO_EXP_DIR",
+    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                 "artifacts", f"exp_ranker_{N_SESSIONS}"),
+)
 CACHE = os.path.join(WORK, "retrieved_cache.npz")
 
 
 def build_cache():
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_comp_cache")
-    import jax
+    from otto_tpu.config import Config, enable_persistent_compilation_cache
 
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.environ["JAX_COMPILATION_CACHE_DIR"])
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
-
-    from otto_tpu.config import Config
+    enable_persistent_compilation_cache()
     from otto_tpu.data.split import split_events
     from otto_tpu.data.synthetic import SyntheticSpec, generate
     from otto_tpu.pipeline.runner import Pipeline
@@ -194,8 +191,7 @@ def main():
     for r in rows:
         print(json.dumps(r))
 
-    # committed evidence for the ranker-vs-ceiling claim (ARCHITECTURE.md
-    # C16 row): result JSON at the repo root + the per-source retrieval
+    # the ranker-vs-ceiling record, next to the per-source retrieval
     # recall report the pipeline wrote during cache build
     out = {
         "spec": {"n_sessions": N_SESSIONS, "n_aids": N_AIDS,
@@ -203,15 +199,10 @@ def main():
         "ceiling": {k: round(v, 5) for k, v in metrics.items()},
         "variants": rows,
     }
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    with open(os.path.join(root, "EXP_RANKER.json"), "w") as fh:
+    path = os.path.join(WORK, "exp_ranker.json")
+    with open(path, "w") as fh:
         json.dump(out, fh, indent=2)
-    src = os.path.join(WORK, "eval_retrieved_sources.json")
-    if os.path.exists(src):
-        import shutil
-
-        shutil.copy(src, os.path.join(root, "EXP_RETRIEVED_SOURCES.json"))
-    log.info("wrote EXP_RANKER.json (+ EXP_RETRIEVED_SOURCES.json)")
+    log.info("wrote %s", path)
 
 
 if __name__ == "__main__":

@@ -25,7 +25,7 @@ REF = [
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("record", nargs="?", default="RUN_FULLSCALE.json")
+    ap.add_argument("record", help="a run_fullscale.py record")
     ap.add_argument("--covis-s", type=float, default=None,
                     help="substitute covis seconds (artifact-cache resume)")
     ap.add_argument("--w2vec-s", type=float, default=None)
@@ -64,7 +64,9 @@ def main():
         k, _, v = sub.partition("=")
         stages[k] = float(v)
 
-    print("| Stage | reference (CPU box) | otto-tpu (1x v5e) | speedup |")
+    dev = d.get("device", {})
+    label = f"otto ({dev.get('count', '?')}x {dev.get('kind', 'unrecorded device')})"
+    print(f"| Stage | reference (CPU box) | {label} | speedup |")
     print("|---|---|---|---|")
     tot_ref = tot_us = 0.0
     for pref, ref_s, desc in REF:

@@ -1,19 +1,18 @@
-"""Phase-level covis + retrieval-pass profiling at smoke scale on the real
-chip: where do the seconds per microbatch go? (pack / push / emit dispatch /
+"""Phase-level covis + retrieval-pass profiling at smoke scale on the
+card: where do the seconds per microbatch go? (pack / push / emit dispatch /
 ladder merges / spill pulls / host merge)."""
 import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_comp_cache")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_comp_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from otto_tpu.config import enable_persistent_compilation_cache
+
+enable_persistent_compilation_cache()
 
 from otto_tpu.config import CoVisConfig
 from otto_tpu.data.batching import (

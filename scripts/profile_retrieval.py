@@ -1,8 +1,8 @@
-"""Stage-level profiling of retrieve_batch on the real chip.
+"""Stage-level profiling of retrieve_batch on the card.
 
 Uses the `_stop_after` hook to time cumulative prefixes (fanout -> l1 ->
-l2 -> compact -> full) and prints the per-stage deltas, once per scan
-backend (XLA Hillis-Steele vs Pallas single-pass), for one bucket shape.
+l2 -> compact -> full) and prints the per-stage deltas for one bucket
+shape.
 
 Usage: OTTO_PROF_L=64 OTTO_PROF_S=512 python scripts/profile_retrieval.py
 """
@@ -13,19 +13,14 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_comp_cache")
-
 import jax
-
-try:
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ["JAX_COMPILATION_CACHE_DIR"])
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:
-    pass
 import jax.numpy as jnp
 
-from otto_tpu.config import CoVisConfig, RetrievalConfig
+from otto_tpu.config import (
+    CoVisConfig,
+    RetrievalConfig,
+    enable_persistent_compilation_cache,
+)
 from otto_tpu.data.batching import iter_microbatches, pack_sessions
 from otto_tpu.data.split import split_events
 from otto_tpu.data.synthetic import SyntheticSpec, generate
@@ -40,6 +35,7 @@ REPS = int(os.environ.get("OTTO_PROF_REPS", 5))
 
 
 def main():
+    enable_persistent_compilation_cache()
     spec = SyntheticSpec(
         n_sessions=20_000, n_aids=N_AIDS, mean_len=12, span_days=21, seed=7
     )
@@ -90,27 +86,24 @@ def main():
     trim = jnp.asarray([20.0, 3.0, 17.0 / 29.0], jnp.float32)
 
     stages = ["fanout", "l1", "l2", "compact", ""]
-    for mode in ("off", "on"):
-        os.environ["OTTO_PALLAS_SCAN"] = mode
-        retrieve_batch._clear_cache()
-        cum = {}
-        for st in stages:
-            out = retrieve_batch(padded, ctx, cluster, semb, trim, 20, 512, st)
+    cum = {}
+    for st in stages:
+        out = retrieve_batch(padded, ctx, cluster, semb, trim, 20, 512, st)
+        jax.block_until_ready(out)
+        t0 = time.time()
+        for _ in range(REPS):
+            out = retrieve_batch(
+                padded, ctx, cluster, semb, trim, 20, 512, st
+            )
             jax.block_until_ready(out)
-            t0 = time.time()
-            for _ in range(REPS):
-                out = retrieve_batch(
-                    padded, ctx, cluster, semb, trim, 20, 512, st
-                )
-                jax.block_until_ready(out)
-            cum[st] = (time.time() - t0) / REPS
-        prev = 0.0
-        print(f"--- scan={mode} S={S} L={L} ---")
-        for st in stages:
-            name = st or "full"
-            print(f"{name:8s} cum {cum[st]*1e3:8.1f} ms   "
-                  f"delta {(cum[st]-prev)*1e3:8.1f} ms")
-            prev = cum[st]
+        cum[st] = (time.time() - t0) / REPS
+    prev = 0.0
+    print(f"--- {jax.devices()[0].device_kind} S={S} L={L} ---")
+    for st in stages:
+        name = st or "full"
+        print(f"{name:8s} cum {cum[st]*1e3:8.1f} ms   "
+              f"delta {(cum[st]-prev)*1e3:8.1f} ms")
+        prev = cum[st]
 
 
 if __name__ == "__main__":

@@ -1,20 +1,19 @@
 """SGNS step-cost profiling at reference vocab scale (V=1.73M): chunk vs
-pair vs scatter-variant steps. The full-scale run measured ~52 ms/step in
-chunk mode — 4 scatter-adds on [V, 100] tables are the suspect (TPU
-scatter pathology, ARCHITECTURE.md lesson 1)."""
+pair vs scatter-variant steps; the 4 scatter-adds on [V, 100] tables are
+the suspect."""
 import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_comp_cache")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_comp_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from otto_tpu.config import enable_persistent_compilation_cache
+
+enable_persistent_compilation_cache()
 
 from otto_tpu.models import word2vec as w2v
 
@@ -39,14 +38,13 @@ lr = jnp.float32(0.025)
 
 
 def sync(p):
-    return float(np.asarray(p.acc_in[-1]))
+    jax.block_until_ready(p)
 
 
 def bench_mode(mode, n_steps=32, reps=4):
     # warm up THE SAME n_steps program (n_steps is static: a different
-    # step count is a different compile), then average executions — the
-    # round-3 version timed the first n_steps call and conflated
-    # compile-cache load with step cost (cf. VERDICT r3 item 9)
+    # step count is a different compile), then average executions, so
+    # compile-cache load is not counted as step cost
     t = time.time()
     p, _ = w2v.sgns_epoch_device(
         params, words, cum_d, neg_cdf, keep_prob, lr,

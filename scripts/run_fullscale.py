@@ -1,6 +1,7 @@
 """Reference-scale pipeline run (BASELINE.json target: full 12.9M-session /
 220M-event / 1.8M-aid pipeline on one chip) with per-stage wall-clock +
-peak-HBM accounting persisted to RUN_FULLSCALE.json.
+peak device-memory accounting persisted to WORKDIR/RUN_FULLSCALE.json,
+with the device it ran on.
 
 The OTTO dataset itself is not present in this environment, so the run uses
 the synthetic generator at reference scale constants (reference:
@@ -19,6 +20,7 @@ import os
 import sys
 import time
 
+import jax
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -30,8 +32,7 @@ from otto_tpu.config import (
 )
 
 # BEFORE any jit: generation runs before the Pipeline (which normally
-# enables the cache), and its device-walk program is a multi-minute remote
-# compile — without this the cost recurs every launch
+# enables the cache), so its device-walk program is cached as well
 enable_persistent_compilation_cache()
 from otto_tpu.data.split import split_events
 from otto_tpu.data.synthetic import SyntheticSpec, generate, generate_device
@@ -59,11 +60,13 @@ def main() -> int:
     n_aids = int(os.environ.get("OTTO_FS_AIDS", 1_800_000))
     mean_len = float(os.environ.get("OTTO_FS_MEANLEN", 13.4))
     max_len = int(os.environ.get("OTTO_FS_MAXLEN", 128))
-    work_dir = os.environ.get("OTTO_FS_WORKDIR", "/tmp/fullscale")
-    # 2048-session batches: streaming pass throughput is round-trip-bound
-    # (ARCHITECTURE.md lesson 20), so batch size sets sessions/s
+    work_dir = os.environ.get("OTTO_FS_WORKDIR", os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "artifacts", "fullscale"))
+    # 2048-session batches: fewer, larger dispatches per streaming pass
     batch = int(os.environ.get("OTTO_FS_BATCH", 2048))
-    out_path = os.environ.get("OTTO_FS_OUT", "RUN_FULLSCALE.json")
+    out_path = os.environ.get(
+        "OTTO_FS_OUT", os.path.join(work_dir, "RUN_FULLSCALE.json"))
     setup_logging(work_dir, logging.INFO)
 
     record = {
@@ -71,6 +74,9 @@ def main() -> int:
                  "mean_len": mean_len, "max_len": max_len,
                  "batch_sessions": batch},
         "reference_eta_s": REFERENCE_ETA_S,
+        "device": {"platform": jax.devices()[0].platform,
+                   "kind": jax.devices()[0].device_kind,
+                   "count": len(jax.devices())},
         "stages": [],
     }
 
@@ -97,8 +103,8 @@ def main() -> int:
         z = np.load(data_cache)
         ev = Events(z["session"], z["aid"], z["ts"], z["type"])
         record["generator"] = "cache"
-    # device generation by default: the host NumPy walk costs ~20 min at
-    # this scale on the 2-core box, the on-chip lax.scan walk seconds
+    # device generation by default: the host NumPy walk is single-core
+    # and takes tens of minutes at this scale
     elif os.environ.get("OTTO_FS_GEN", "device") == "device":
         ev = generate_device(spec)
         record["generator"] = "device"
@@ -131,8 +137,8 @@ def main() -> int:
     cfg = DEFAULT
     if os.environ.get("OTTO_FS_DEVSELECT", "1") == "1":
         # device-side downsample keep bits: the host selection's three
-        # [2048, 512] argsorts were ~0.5 s/batch of pass-A consumer time
-        # on the 2-core box (RankerConfig.device_select)
+        # [2048, 512] argsorts per batch move to the device
+        # (RankerConfig.device_select)
         cfg = dataclasses.replace(
             cfg, ranker=dataclasses.replace(cfg.ranker, device_select=True)
         )

@@ -1,16 +1,17 @@
 """Retrieval-cap sweep: quantify the recall/throughput knee of
-max_session_aids x max_candidates (VERDICT round-1 item 7).
+max_session_aids x max_candidates.
 
 The reference keeps the last 99 events per type per session
 (reference: config.py:76-79) and produces up to 2322 candidates/session
-(reference: README.md:42-47); the TPU engine pads to fixed
+(reference: README.md:42-47); the device engine pads to fixed
 (max_session_aids, max_candidates) shapes instead (otto_tpu/config.py
 RetrievalConfig). This sweep measures, on a LENGTH-SKEWED synthetic set
 (heavier tail than the default generator so the caps actually bind),
 retrieval-ceiling recall@20-topall and sessions/s per (keep_aids, C) cell,
-and writes SWEEP_RETRIEVAL_CAPS.json.
+and writes artifacts/sweep_caps/sweep.json. Sessions/s is a device number
+only when the run is on the card.
 
-Usage: python scripts/sweep_retrieval_caps.py   (TPU or CPU)
+Usage: python scripts/sweep_retrieval_caps.py
 Env: OTTO_SWEEP_SESSIONS (default 30000), OTTO_SWEEP_AIDS (20000)
 """
 import json
@@ -18,7 +19,6 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_comp_cache")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
@@ -27,13 +27,20 @@ import numpy as np
 def main() -> int:
     import logging
 
-    from otto_tpu.config import DEFAULT, setup_logging
+    from otto_tpu.config import (
+        DEFAULT,
+        enable_persistent_compilation_cache,
+        setup_logging,
+    )
     from otto_tpu.data.split import split_events
     from otto_tpu.data.synthetic import SyntheticSpec, generate
     from otto_tpu.eval.recall import recall_at_k
     from otto_tpu.pipeline.runner import Pipeline
 
     setup_logging(None, logging.INFO)
+    enable_persistent_compilation_cache()
+    work = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "artifacts", "sweep_caps")
     NS = int(os.environ.get("OTTO_SWEEP_SESSIONS", 30_000))
     NA = int(os.environ.get("OTTO_SWEEP_AIDS", 20_000))
 
@@ -50,7 +57,7 @@ def main() -> int:
           f"test len p50/p99/max = {np.percentile(ulen, 50):.0f}/"
           f"{np.percentile(ulen, 99):.0f}/{ulen.max()}", file=sys.stderr)
 
-    pipe = Pipeline(cfg=DEFAULT, work_dir="/tmp/sweep_caps", n_aids=NA)
+    pipe = Pipeline(cfg=DEFAULT, work_dir=work, n_aids=NA)
     retriever = pipe.build_retriever(sp.train, sp.test)
 
     grid_aids = (32, 64, 99)
@@ -91,8 +98,7 @@ def main() -> int:
                  "2322 (README.md:42-47)"),
         "grid": rows,
     }
-    path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "SWEEP_RETRIEVAL_CAPS.json")
+    path = os.path.join(work, "sweep.json")
     with open(path, "w") as fh:
         json.dump(out, fh, indent=2)
     print(f"# wrote {path}", file=sys.stderr)

@@ -168,7 +168,7 @@ def test_covis_counter_ladder_equals_direct():
 
 
 def test_spill_counter_matches_oracle_past_device_capacity():
-    """Reference-capacity semantics (VERDICT round-1 item 2): with host
+    """Reference-capacity semantics: with host
     spill, finalize() must match the NumPy oracle EXACTLY even when the
     unique-pair count exceeds the device accumulator capacity — where the
     bounded-table path is forced into lossy in-part overflow pruning.
@@ -233,24 +233,32 @@ def test_host_run_store_auto_merge_is_exact():
     assert plain.rows_spilled == compacting.rows_spilled
 
 
-def test_host_topn_tables_match_device():
+@pytest.mark.parametrize("grid", [False, True])
+def test_host_topn_tables_match_device(grid):
     """host_topn_tables (spill-mode retrieval-table builder) must reproduce
     build_retrieval_tables bit for bit on the same finalized counts."""
     rng = np.random.default_rng(4)
-    n = 600
-    aid = rng.integers(0, 50, n).astype(np.int32)
-    nxt = rng.integers(0, 50, n).astype(np.int32)
-    # dedup (host tables are unique by construction)
-    key = aid.astype(np.int64) * 64 + nxt
-    _, idx = np.unique(key, return_index=True)
-    aid, nxt = aid[idx], nxt[idx]
-    cnt = rng.integers(1, 1000, len(aid)).astype(np.int32)
+    n_aids = 50
+    if grid:
+        # exactly 500 pairs: rank / 500 * 10_000 lands on integers, where
+        # float32 and float64 truncations differ
+        aid = np.repeat(np.arange(n_aids, dtype=np.int32), 10)
+        nxt = np.tile(np.arange(10, dtype=np.int32), n_aids)
+    else:
+        aid = rng.integers(0, n_aids, 600).astype(np.int32)
+        nxt = rng.integers(0, n_aids, 600).astype(np.int32)
+        # dedup (host tables are unique by construction)
+        key = aid.astype(np.int64) * 64 + nxt
+        _, idx = np.unique(key, return_index=True)
+        aid, nxt = aid[idx], nxt[idx]
+    max_count = 1000
+    cnt = rng.integers(1, max_count, len(aid)).astype(np.int32)
     order = np.lexsort((nxt, aid))
     aid, nxt, cnt = aid[order], nxt[order], cnt[order]
 
-    host = counts_ops.host_topn_tables(aid, nxt, cnt, n_aids=50, first_n=5)
+    host = counts_ops.host_topn_tables(aid, nxt, cnt, n_aids=n_aids, first_n=5)
 
-    cap = 1024
+    cap = 1 << (len(aid) - 1).bit_length()
     pad = cap - len(aid)
     dev_t = counts_ops.CountTable(
         aid=jnp.asarray(np.pad(aid, (0, pad), constant_values=SENT)),
@@ -258,7 +266,7 @@ def test_host_topn_tables_match_device():
         count=jnp.asarray(np.pad(cnt, (0, pad))),
         n=jnp.asarray(len(aid), jnp.int32),
     )
-    dev = build_retrieval_tables(dev_t, n_aids=50, first_n=5)
+    dev = build_retrieval_tables(dev_t, n_aids=n_aids, first_n=5)
     for name, h, d in zip(
         ("neighbor", "count", "count_pop", "perc_pop", "count_rel"),
         host, dev,

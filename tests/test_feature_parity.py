@@ -62,7 +62,7 @@ REFERENCE_RANKER_FEATURES = (
 )
 
 # the one intentional addition beyond the reference catalogue
-OTTO_TPU_EXTENSIONS = ("heur_score",)
+OTTO_EXTENSIONS = ("heur_score",)
 
 
 def test_reference_catalog_size():
@@ -77,7 +77,7 @@ def test_all_reference_features_implemented():
 
 def test_no_undocumented_extensions():
     extra = set(FEATURE_NAMES) - set(REFERENCE_RANKER_FEATURES)
-    assert extra == set(OTTO_TPU_EXTENSIONS), (
-        f"undocumented feature extensions: {sorted(extra - set(OTTO_TPU_EXTENSIONS))}"
+    assert extra == set(OTTO_EXTENSIONS), (
+        f"undocumented feature extensions: {sorted(extra - set(OTTO_EXTENSIONS))}"
     )
-    assert len(FEATURE_NAMES) == 103 + len(OTTO_TPU_EXTENSIONS)
+    assert len(FEATURE_NAMES) == 103 + len(OTTO_EXTENSIONS)

@@ -276,3 +276,31 @@ def test_device_binning_matches_host():
     host = bin_features(x, edges)
     dev = np.asarray(_bin_program(jnp.asarray(x), jnp.asarray(edges)))
     np.testing.assert_array_equal(host, dev)
+
+
+@pytest.mark.parametrize("depth", [3, 4])
+def test_predict_binned_matches_numpy_walk(depth):
+    """Vectorized all-trees traversal vs a per-row, per-tree NumPy walk."""
+    from otto_tpu.models.gbdt import _predict_binned_program, leaf_index_program
+
+    rng = np.random.default_rng(depth)
+    M, F, T, B = 300, 7, 11, 16
+    W = 1 << (depth - 1)
+    bins = rng.integers(0, B, (M, F)).astype(np.uint8)
+    gfeat = rng.integers(0, F, (T, depth, W)).astype(np.int32)
+    thr = rng.integers(1, B + 1, (T, depth, W)).astype(np.int32)  # B = no-op
+    leaf = rng.normal(size=(T, 1 << depth)).astype(np.float32)
+    want_node = np.zeros((M, T), np.int64)
+    for m in range(M):
+        for t in range(T):
+            node = 0
+            for lvl in range(depth):
+                go_right = bins[m, gfeat[t, lvl, node]] >= thr[t, lvl, node]
+                node = node * 2 + int(go_right)
+            want_node[m, t] = node
+    want = leaf[np.arange(T)[None, :], want_node].astype(np.float64).sum(1)
+    args = [jnp.asarray(a) for a in (bins, gfeat, thr)]
+    np.testing.assert_array_equal(np.asarray(leaf_index_program(*args)),
+                                  want_node)
+    got = _predict_binned_program(*args, jnp.asarray(leaf), B)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=1e-5, atol=1e-5)

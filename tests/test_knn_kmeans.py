@@ -3,7 +3,7 @@ import numpy as np
 import pytest
 
 from otto_tpu.ops.kmeans import kmeans_fit
-from otto_tpu.ops.knn import knn_search
+from otto_tpu.ops.knn import corpus_tile, knn_search
 
 RNG = np.random.default_rng(0)
 
@@ -31,6 +31,58 @@ def test_knn_dot():
     s = queries @ corpus.T
     ref = np.sort(s, axis=1)[:, ::-1][:, :k]
     np.testing.assert_allclose(np.asarray(scores), ref, rtol=1e-4, atol=1e-4)
+
+
+def _ref_scores(queries, corpus, metric):
+    q, c = queries.astype(np.float64), corpus.astype(np.float64)
+    if metric == "cos":
+        q = q / np.linalg.norm(q, axis=1, keepdims=True)
+        c = c / np.linalg.norm(c, axis=1, keepdims=True)
+    if metric == "l2":
+        return -((q[:, None, :] - c[None, :, :]) ** 2).sum(-1)
+    return q @ c.T
+
+
+@pytest.mark.parametrize("metric", ["l2", "dot", "cos"])
+@pytest.mark.parametrize(
+    "V,k",
+    [(100, 5),    # corpus smaller than one tile
+     (300, 7),    # corpus not a multiple of the tile (3 tiles of 128)
+     (4, 6)],     # fewer corpus rows than k
+)
+def test_knn_search_matches_float64(metric, V, k):
+    rng = np.random.default_rng(V + k)
+    corpus = rng.normal(size=(V, 12)).astype(np.float32)
+    queries = rng.normal(size=(9, 12)).astype(np.float32)
+    scores, idx = knn_search(queries, corpus, k, metric=metric, tile=128)
+    ref = _ref_scores(queries, corpus, metric)
+    kk = min(k, V)
+    want = -np.sort(-ref, axis=1)[:, :kk]
+    np.testing.assert_allclose(scores[:, :kk], want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(np.take_along_axis(ref, idx[:, :kk], 1), want,
+                               rtol=1e-4, atol=1e-4)
+    # missing neighbours: score -inf, index -1 (never a padding row id)
+    assert np.all(idx[:, kk:] == -1)
+    assert np.all(np.isneginf(scores[:, kk:]))
+
+
+@pytest.mark.parametrize("Q", [37, 32, 5])
+def test_knn_search_query_block_padding(Q):
+    """Blocks padded to query_block rows give the single-block answer."""
+    rng = np.random.default_rng(Q)
+    corpus = rng.normal(size=(200, 8)).astype(np.float32)
+    queries = rng.normal(size=(Q, 8)).astype(np.float32)
+    s1, i1 = knn_search(queries, corpus, 4, query_block=1024)
+    s2, i2 = knn_search(queries, corpus, 4, query_block=16)
+    assert s2.shape == (Q, 4) and i2.shape == (Q, 4)
+    np.testing.assert_allclose(s1, s2, rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(i1, i2)
+
+
+@pytest.mark.parametrize("n,want", [(1, 128), (100, 128), (300, 512),
+                                    (5000, 8192), (1_800_000, 8192)])
+def test_corpus_tile(n, want):
+    assert corpus_tile(n) == want
 
 
 def test_kmeans_separates_blobs():

@@ -70,10 +70,10 @@ def test_pipeline_produces_all_artifacts(pipeline_metrics):
         assert os.path.exists(os.path.join(work, f)), f
 
 
-# Golden-metric regression pins (VERDICT round-1 item 3): recorded from a
+# Golden-metric regression pins: recorded from a
 # seeded CPU run of exactly the fixture's spec+config (2026-08-20). The
 # pipeline is deterministic per platform; the tolerance absorbs cross-
-# platform reduction-order drift (CPU vs virtual-mesh CI vs TPU), NOT
+# platform reduction-order drift (CPU vs virtual-mesh CI vs GPU), NOT
 # algorithm changes — a real recall regression trips these long before it
 # trips the loose sanity bounds below.
 GOLDEN = {

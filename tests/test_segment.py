@@ -130,3 +130,102 @@ def test_ordinal_rank_asc_flat():
     valid = jnp.ones(4, bool)
     rank = np.asarray(seg.ordinal_rank_asc(g, v, valid))
     assert rank.tolist() == [3, 1, 2, 1]
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32, np.int8])
+@pytest.mark.parametrize("C", [100, 300])
+def test_rowwise_transport_sort_matches_stable_argsort(dtype, C):
+    rng = np.random.default_rng(C)
+    S = 6
+    key = rng.integers(0, 12, (S, C)).astype(np.int32)
+    key[rng.random((S, C)) < 0.2] = SENT
+    a = rng.integers(-100, 100, (S, C)).astype(dtype)
+    b = np.arange(S * C, dtype=np.int32).reshape(S, C)
+    ks, (sa, sb) = seg.rowwise_transport_sort(
+        jnp.asarray(key), [jnp.asarray(a), jnp.asarray(b)])
+    perm = np.argsort(key, axis=1, kind="stable")
+    np.testing.assert_array_equal(np.asarray(ks),
+                                  np.take_along_axis(key, perm, 1))
+    np.testing.assert_array_equal(np.asarray(sa), np.take_along_axis(a, perm, 1))
+    np.testing.assert_array_equal(np.asarray(sb), np.take_along_axis(b, perm, 1))
+    assert np.asarray(sa).dtype == dtype
+
+
+def _np_segment_reduce(ks, v, red):
+    """Per row: each segment's reduction at its last lane."""
+    fn = {"sum": np.add, "min": np.minimum, "max": np.maximum}[red]
+    out = np.zeros_like(v)
+    for s in range(ks.shape[0]):
+        starts = np.flatnonzero(np.r_[True, ks[s, 1:] != ks[s, :-1]])
+        ends = np.r_[starts[1:] - 1, ks.shape[1] - 1]
+        out[s, ends] = fn.reduceat(v[s], starts)
+    return out
+
+
+@pytest.mark.parametrize("red", ["sum", "min", "max"])
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_rowwise_groupby_scan_matches_numpy(red, dtype):
+    rng = np.random.default_rng(7)
+    S, C = 5, 260
+    key = rng.integers(0, 30, (S, C)).astype(np.int32)
+    key[rng.random((S, C)) < 0.1] = SENT
+    # float values are multiples of 1/8: sums are exact in any order
+    v = (rng.integers(-400, 400, (S, C)) / (8 if dtype == np.float32 else 1)
+         ).astype(dtype)
+    ks, out, is_end, n_unique = seg.rowwise_groupby_scan(
+        jnp.asarray(key), {"v": (jnp.asarray(v), red)})
+    perm = np.argsort(key, axis=1, kind="stable")
+    ks_ref = np.take_along_axis(key, perm, 1)
+    want = _np_segment_reduce(ks_ref, np.take_along_axis(v, perm, 1), red)
+    end = np.asarray(is_end)
+    np.testing.assert_array_equal(np.asarray(ks), ks_ref)
+    np.testing.assert_array_equal(np.asarray(out["v"])[end], want[end])
+    # segment ends: last lane of each valid-key segment
+    last = np.concatenate(
+        [ks_ref[:, 1:] != ks_ref[:, :-1], np.ones((S, 1), bool)], axis=1)
+    np.testing.assert_array_equal(end, last & (ks_ref != SENT))
+    np.testing.assert_array_equal(
+        np.asarray(n_unique),
+        [len(np.unique(r[r != SENT])) for r in key])
+
+
+@pytest.mark.parametrize("red", ["sum", "min", "max"])
+def test_segmented_scan_flat_matches_numpy(red):
+    rng = np.random.default_rng(3)
+    n = 333
+    v = rng.integers(-50, 50, n).astype(np.int32)
+    first = rng.random(n) < 0.1
+    first[0] = True
+    (got,) = seg.segmented_scan((jnp.asarray(v),), (red,),
+                                jnp.asarray(first), axis=0)
+    fn = {"sum": np.add, "min": np.minimum, "max": np.maximum}[red]
+    want = np.empty_like(v)
+    for s, e in zip(np.flatnonzero(first), np.r_[np.flatnonzero(first)[1:], n]):
+        want[s:e] = fn.accumulate(v[s:e])
+    np.testing.assert_array_equal(np.asarray(got), want)
+
+
+def test_rowwise_groupby_scan_layout():
+    """rowwise_groupby_scan's segment-end values must equal the compacted
+    rowwise_groupby reductions (same groups, different layout)."""
+    rng = np.random.default_rng(11)
+    S, C = 4, 600
+    key = jnp.asarray(rng.integers(0, 40, (S, C)).astype(np.int32))
+    cols = {
+        "a": (jnp.asarray(rng.integers(0, 100, (S, C)).astype(np.int32)), "sum"),
+        "b": (jnp.asarray(rng.integers(0, 100, (S, C)).astype(np.int32)), "min"),
+        "c": (jnp.asarray(rng.normal(size=(S, C)).astype(np.float32)), "max"),
+    }
+    uk, out, n = seg.rowwise_groupby(key, cols)
+    ks, scanned, is_end, n2 = seg.rowwise_groupby_scan(key, cols)
+    np.testing.assert_array_equal(np.asarray(n), np.asarray(n2))
+    ksn = np.asarray(ks); endn = np.asarray(is_end)
+    ukn = np.asarray(uk)
+    for s in range(S):
+        ends = np.nonzero(endn[s])[0]
+        np.testing.assert_array_equal(ksn[s, ends], ukn[s, : len(ends)])
+        for name in cols:
+            vals = np.asarray(scanned[name])[s, ends]
+            np.testing.assert_allclose(
+                vals, np.asarray(out[name])[s, : len(ends)], rtol=1e-6
+            )

@@ -1,6 +1,5 @@
 """Recency-adaptive trim parity vs a hand-computed reference keep set
-(reference: model/retrieve.py:490-510). VERDICT r2 weak item 6: bound the
-trim semantics.
+(reference: model/retrieve.py:490-510): bound the trim semantics.
 
 The reference keeps a (source-aid, candidate) pair iff
     aid == aid_next
@@ -110,7 +109,7 @@ def _reference_trim_oracle(sources, max_at_1, min_n, min_at_order):
 
 
 def test_trim_adaptive_threshold_matches_oracle():
-    """The NON-constant case (VERDICT r3 item 8): per-source-aid threshold
+    """The NON-constant case: per-source-aid threshold
     falls with the aid's best order (recency/frequency rank) and clips at
     trim_min. Session aids 1..4 get best orders 1..4 (both rank_by_n_aid
     and ts_order_aid agree by construction); with max_at_1=6, min=1,
